@@ -14,6 +14,7 @@ import numpy as np
 from ..io import load_coo
 from ..ops.flops import flops_stats, nnz_stats, print_stats
 from ..ops.spgemm import matmul, spgemm_upper_bounds
+from ..utils.timing import enable_compile_cache
 from .args import build_parser
 
 
@@ -26,6 +27,7 @@ def main(argv=None) -> int:
         "(mindex2-cuda/analysis.cu:35-110 parity)",
     )
     args = p.parse_args(argv)
+    enable_compile_cache()
     coo = load_coo(args.input, is_trans=False)
     a = coo.sum_duplicates().to_csr()
 

@@ -22,7 +22,7 @@ def build_parser(description: str) -> argparse.ArgumentParser:
         "-r",
         default="ESC",
         help="backend name (SEQ/OMP/GPU/CILK/SOMP/MKL/SFOMP/HYB all map "
-        "onto the TPU ESC kernel; qrmcl.h:8-21 parity)",
+        "onto the device ESC kernel; qrmcl.h:8-21 parity)",
     )
     p.add_argument("--maxIters", "-m", type=int, default=DEFAULT_MAX_ITERS)
     p.add_argument(
@@ -30,7 +30,7 @@ def build_parser(description: str) -> argparse.ArgumentParser:
         "-d",
         type=int,
         default=DEFAULT_STRIDE,
-        help="accepted for parity; XLA owns tiling on TPU",
+        help="accepted for parity; XLA owns tiling",
     )
     p.add_argument("--stats", "-s", action="store_true", help="per-iteration stats")
     p.add_argument("--calcChange", "-c", action="store_true")
@@ -42,12 +42,12 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument(
         "--br", type=int, default=8,
         help="block rows — accepted for parity; BCSR callers size blocks "
-        "directly (TPU sublane default 8)",
+        "directly (default 8)",
     )
     p.add_argument(
         "--bc", type=int, default=128,
         help="block cols — accepted for parity; BCSR callers size blocks "
-        "directly (TPU lane default 128)",
+        "directly (default 128)",
     )
     return p
 

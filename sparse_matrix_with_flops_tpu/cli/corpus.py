@@ -60,12 +60,7 @@ def run_partitioned(
     import numpy as np
 
     from ..formats.csr import CSR
-    from ..ops.ell_esc import (
-        _tiles_impl,
-        _use_pallas_default,
-        plan_ell,
-        spgemm_ell,
-    )
+    from ..ops.ell_esc import _tiles_impl, plan_ell, spgemm_ell
     from ..ops.partitioned import csr_row_slice, flops_prefix_partition
     from ..ops.spgemm import spgemm_upper_bounds
     from ..utils.timing import slope_bench
@@ -80,7 +75,6 @@ def run_partitioned(
     cuts = flops_prefix_partition(a, a, parts)
     plan_ms = (_time.monotonic() - t_plan0) * 1e3
     db = jax.device_put(a)
-    up = _use_pallas_default()
     total_ms, nnzc = 0.0, 0
     group_ms = []
     for r0, r1 in zip(cuts[:-1], cuts[1:]):
@@ -97,7 +91,7 @@ def run_partitioned(
         def step(x, dg=dg, plan=plan, cap=cap):
             a2 = CSR(dg.row_ptr, dg.col_ind, dg.values + x, dg.ncols)
             csr, n = _tiles_impl(
-                a2, db, plan, plan.chunk, up, fused_out_cap=cap
+                a2, db, plan, plan.chunk, fused_out_cap=cap
             )
             return (csr.row_ptr, csr.col_ind, csr.values, n)
 
@@ -207,7 +201,7 @@ def run_one(name, a, kernel: str, check: bool = False,
         fn, p_ms, _cap = prep_block_step(a, da)
         plan_ms = pre_ms + p_ms
     else:
-        from ..ops.ell_esc import _tiles_impl, _use_pallas_default
+        from ..ops.ell_esc import _tiles_impl
 
         plan = plan_ell(a, a, **kw)
         plan_ms = (_time.monotonic() - t_plan0) * 1e3
@@ -217,11 +211,10 @@ def run_one(name, a, kernel: str, check: bool = False,
         spgemm_ell(da, da, plan)
         spgemm_ell(da, da, plan)
         cap = getattr(plan, "_nnzc_cache")
-        up = _use_pallas_default()
 
         def fn(x):
             csr, _ = _tiles_impl(
-                x, x, plan, plan.chunk, up, fused_out_cap=cap
+                x, x, plan, plan.chunk, fused_out_cap=cap
             )
             return csr
 
@@ -299,6 +292,11 @@ def _ell_tile_gb(a) -> float:
     return float(binned.sum()) * 2 * 4 * 3 / 1e9
 
 
+def _device_limit_gb() -> float:
+    """Memory the allocator may hand out on device 0, in GB."""
+    return jax.devices()[0].memory_stats()["bytes_limit"] / 1e9
+
+
 def run_duel(name, a, check: bool = False):
     """Run BOTH engines plus the production route decision, recording
     how much the auto choice loses to the better engine (VERDICT r4 #5:
@@ -307,6 +305,7 @@ def run_duel(name, a, check: bool = False):
     from ..ops.dispatch import route
 
     kernel, fill = route(a, a)
+    limit_gb = _device_limit_gb()
     recs, errs = {}, {}
     for k in ("block", "ell"):
         if k == "block" and fill < 0.02:
@@ -315,12 +314,14 @@ def run_duel(name, a, check: bool = False):
             continue
         if k == "ell":
             gb = _ell_tile_gb(a)
-            if gb > 6.0:
-                # a single-dispatch ELL tile footprint past HBM doesn't
-                # just fail, it poisons the process for later matrices
-                # (a live OOM left the allocator unable to serve the
-                # NEXT duel's block plan) — pre-estimate and skip; the
-                # partitioned driver is the production answer there
+            # the estimate is rough (~3 live copies), so keep a wide
+            # margin: skip past 3/8 of what the allocator may hand out
+            if gb > 0.375 * limit_gb:
+                # a single-dispatch ELL tile footprint past device memory
+                # doesn't just fail, it poisons the process for later
+                # matrices (a live OOM leaves the allocator unable to
+                # serve the NEXT duel's block plan) — pre-estimate and
+                # skip; the partitioned driver is the answer there
                 errs[k] = f"skipped: ~{gb:.1f} GB single-dispatch tiles"
                 continue
         try:
@@ -395,7 +396,7 @@ def main(argv=None) -> int:
         "--kernel",
         default="ell",
         choices=["esc", "binned", "ell", "ell-tiled", "block", "auto"],
-        help="block = dense-block MXU path (band/FEM-class matrices); "
+        help="block = dense-block path (band/FEM-class matrices); "
         "auto = route per matrix by measured block fill "
         "(ops.dispatch.spgemm_auto's rule) and record the decision",
     )
@@ -417,7 +418,8 @@ def main(argv=None) -> int:
         type=int,
         default=1,
         help=">1: row-partitioned driver (ops/partitioned.py law) — "
-        "sum of per-group slope times; needed past single-dispatch HBM",
+        "sum of per-group slope times; needed past single-dispatch "
+        "device memory",
     )
     p.add_argument(
         "--families",
@@ -492,9 +494,9 @@ def main(argv=None) -> int:
             rp, ci = csr_host(a)
             mt = spgemm_mt_baseline(rp, ci, np.asarray(a.values), a.ncols)
             if mt is not None:
-                # ratio > 1 means the TPU kernel beats the 4-thread CPU;
-                # _cold charges the TPU's host planning too (the CPU
-                # baseline always includes its symbolic phase)
+                # ratio > 1 means the device kernel beats the 4-thread
+                # CPU; _cold charges the device path's host planning too
+                # (the CPU baseline always includes its symbolic phase)
                 rec["mt_baseline_ms"] = round(mt[0], 3)
                 rec["vs_baseline_mt"] = round(mt[0] / rec["ms"], 3)
                 rec["vs_baseline_mt_cold"] = round(

@@ -16,13 +16,14 @@ import numpy as np
 
 from ..io import load_coo
 from ..models.rmcl import rmcl, rmcl_init
-from ..utils.timing import time_in_mill_now
+from ..utils.timing import enable_compile_cache, time_in_mill_now
 from .args import build_parser, print_args
 
 
 def main(argv=None) -> int:
-    args = build_parser("TPU R-MCL (nrmcl.x parity)").parse_args(argv)
+    args = build_parser("R-MCL (nrmcl.x parity)").parse_args(argv)
     print_args(args)
+    enable_compile_cache()
 
     from ..models.rmcl import BACKENDS
 

@@ -17,7 +17,7 @@ from ..io import load_coo
 from ..models.rmcl import plan_capacities, rmcl, rmcl_init
 from ..ops.binned import plan_bins, spgemm_binned
 from ..ops.spgemm import spgemm, spgemm_upper_bounds
-from ..utils.timing import bench_fn, time_in_mill_now
+from ..utils.timing import bench_fn, enable_compile_cache, time_in_mill_now
 from .args import build_parser
 
 
@@ -45,6 +45,7 @@ def main(argv=None) -> int:
         "flat export; ops/partitioned.py)",
     )
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     coo = load_coo(args.input, is_trans=False)
     a = coo.sum_duplicates().to_csr()

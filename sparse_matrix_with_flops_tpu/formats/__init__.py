@@ -1,4 +1,4 @@
-"""Sparse matrix containers (L1 format layer, TPU-native pytrees)."""
+"""Sparse matrix containers (L1 format layer, static-shape pytrees)."""
 
 from .bcsr import BCSR
 from .coo import COO

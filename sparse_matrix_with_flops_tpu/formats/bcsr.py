@@ -1,16 +1,16 @@
 """BCSR: block-compressed sparse rows with dense (br × bc) tiles.
 
 The reference has the format but no kernel (nlibs/BCSR.h:6-64, BCSR.cc —
-"format + verification only", SURVEY.md §2.2); the TPU rebuild gives it a
-real job: dense blocks are exactly what the MXU wants, so BCSR carries the
+"format + verification only", SURVEY.md §2.2); this framework gives it
+a real job: dense blocks feed batched matmuls, so BCSR carries the
 blocked SpMM/SpMV paths (ops/spmm.py).
 
-TPU-native layout choices vs the reference:
+Layout choices vs the reference:
 
 * blocks are stored as one dense ``[nblocks, br, bc]`` array (the reference
   stores a flat 4096-aligned values slab, BCSR.cc:34) — XLA-friendly and
-  directly feedable to ``jnp.einsum``/Pallas MXU tiles;
-* default block shape is (8, 128) — one float32 VPU/MXU tile — instead of
+  directly feedable to ``jnp.einsum``;
+* default block shape is (8, 128) — a wide, matmul-friendly tile — instead of
   the reference's register-blocking default (2, 8) (process_args.h:33-34);
 * static capacity padding like CSR: block slots in [nblocks, capacity) are
   zero blocks pointing at block-column ``nbcols`` (sentinel).

@@ -1,6 +1,6 @@
 """COO: triplet container + graph-ingestion ops.
 
-TPU-native counterpart of the reference's ``class COO`` (nlibs/COO.h,
+Device counterpart of the reference's ``class COO`` (nlibs/COO.h,
 COO.cc).  Ingestion (file parsing) lives in :mod:`..io`; this class holds
 the triplets as device arrays with a static capacity and provides the
 jit-friendly versions of the reference's preprocessing ops:

@@ -1,6 +1,6 @@
 """CSR: the central sparse container, as a static-shape JAX pytree.
 
-TPU-native re-design of the reference's ``struct CSR`` (nlibs/CSR.h:23-38):
+Re-design of the reference's ``struct CSR`` (nlibs/CSR.h:23-38):
 ``{values, colInd, rowPtr, rows, cols, nnz}``.  Differences forced by the
 XLA compilation model:
 

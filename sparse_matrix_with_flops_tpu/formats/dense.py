@@ -2,8 +2,8 @@
 
 Parity with the reference's ``struct DenseMatrix`` (nlibs/DenseMatrix.h:
 3-45): a row-major dense scatter of a CSR used to check sparse kernels
-against ``cblas_dgemm`` (correctTests/dense-somp.cc:33-46).  On TPU the
-"cblas" is the MXU via ``jnp.dot``.
+against ``cblas_dgemm`` (correctTests/dense-somp.cc:33-46).  Here the
+"cblas" is ``jnp.dot`` at true f32 (config.MATMUL_PRECISION).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from ..config import QVALUE_DTYPE
+from ..config import MATMUL_PRECISION, QVALUE_DTYPE
 from .csr import CSR
 
 
@@ -40,10 +40,13 @@ class DenseMatrix:
         return DenseMatrix(a.to_dense())
 
     def matmul(self, other: "DenseMatrix") -> "DenseMatrix":
-        """The cblas_dgemm role (dense-somp.cc:23-46) on the MXU."""
+        """The cblas_dgemm role (dense-somp.cc:23-46)."""
         return DenseMatrix(
             jnp.dot(
-                self.data, other.data, preferred_element_type=jnp.float32
+                self.data,
+                other.data,
+                preferred_element_type=jnp.float32,
+                precision=MATMUL_PRECISION,
             ).astype(QVALUE_DTYPE)
         )
 

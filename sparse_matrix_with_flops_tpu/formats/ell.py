@@ -1,10 +1,10 @@
-"""ELL: padded fixed-width rows — the TPU's favourite sparse layout.
+"""ELL: padded fixed-width rows — the static-shape sparse layout.
 
 Not present in the reference as a named format, but implicitly everywhere
 its binned kernels pad rows to a power-of-two lane count (gspgemm.cuh per-
 bin kernels; SURVEY.md §7 S4 calls for "BCSR/ELL padded-tile format for
-MXU-shaped SpMM/SpMV").  ``[rows, width]`` col/val planes make every row op
-a lane-parallel VPU op with zero ragged control flow.
+matmul-shaped SpMM/SpMV").  ``[rows, width]`` col/val planes make every
+row op a data-parallel op with zero ragged control flow.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 Re-design of the reference's ``struct MCSR : public CSR, BCSR``
 (nlibs/MCSR.h:6, MCSR.cc:16-93): there, a dense top-left
 ``blockRows × blockCols`` region is stored as BCSR and the remainder as
-CSR, split by ``col < blockCols``; no kernel exists.  TPU version: the
-dense region is an actual dense array (MXU operand), the remainder stays
+CSR, split by ``col < blockCols``; no kernel exists.  Here the
+dense region is an actual dense array (a matmul operand), the remainder stays
 CSR, and SpMV/SpMM is dense-matmul + sparse path summed — the natural
 hybrid for matrices with a dense corner (e.g. reordered power-law graphs
 whose hubs are permuted to the front, CSR::rowDescendingOrderPermutation,
@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..config import INDEX_DTYPE, QVALUE_DTYPE
+from ..config import MATMUL_PRECISION, QVALUE_DTYPE
 from .csr import CSR
 
 
@@ -75,7 +75,9 @@ class MCSR:
         from ..ops.spmm import csr_spmv
 
         y = csr_spmv(self.rest, x)
-        yd = self.dense @ x[: self.block_cols]
+        yd = jnp.dot(
+            self.dense, x[: self.block_cols], precision=MATMUL_PRECISION
+        )
         return y.at[: self.block_rows].add(yd)
 
     def spmm(self, b: jax.Array) -> jax.Array:
@@ -83,6 +85,9 @@ class MCSR:
 
         c = csr_spmm_dense(self.rest, b)
         cd = jnp.dot(
-            self.dense, b[: self.block_cols], preferred_element_type=jnp.float32
+            self.dense,
+            b[: self.block_cols],
+            preferred_element_type=jnp.float32,
+            precision=MATMUL_PRECISION,
         )
         return c.at[: self.block_rows].add(cd).astype(QVALUE_DTYPE)

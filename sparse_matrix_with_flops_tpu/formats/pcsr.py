@@ -4,7 +4,7 @@ Re-design of the reference's ``struct PCSR`` (nlibs/PCSR.h:5-101,
 PCSR.cc:3-56): the matrix is split into ``c`` vertical stripes, each a CSR
 over local columns; its only kernel is the striped SpGEMM in the test
 driver (stripe-wise ``A.omp_spmm(pB.blocks[b])``, correctTests/pcsrTest.cc:
-7-19).  On TPU the production path for this idea is the mesh sharding in
+7-19).  The production path for this idea is the mesh sharding in
 ``parallel/`` (SURVEY.md P4); this container exists for single-host parity
 and as the reference point for the striped differential test.
 """

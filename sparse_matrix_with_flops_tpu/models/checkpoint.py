@@ -1,7 +1,7 @@
 """Checkpoint / resume for long R-MCL runs.
 
 The reference has none (SURVEY.md §5: matrices can only be text-dumped via
-CSR::output under #ifdef debugging, nrmcl.cc:22-25).  The TPU framework
+CSR::output under #ifdef debugging, nrmcl.cc:22-25).  This framework
 adds real checkpointing of the iterate + iteration counter so multi-hour
 clustering runs survive preemption — orbax when available, a portable npz
 fallback otherwise.

@@ -1,6 +1,6 @@
 """R-MCL: Regularized Markov Clustering — the flagship algorithm driver.
 
-Re-design of the reference L4 layer (nlibs/qrmcl.{h,cc}) for TPU:
+Re-design of the reference L4 layer (nlibs/qrmcl.{h,cc}) for an accelerator:
 
 * ``rmcl_init``      — rmclInit (qrmcl.cc:126-134): add self loops, order,
                        CSR-ize, row-uniform normalise (the input graph is
@@ -20,8 +20,8 @@ Re-design of the reference L4 layer (nlibs/qrmcl.{h,cc}) for TPU:
                        pattern, qrmcl.cc:8-84).
 
 Backend registry: the reference dispatches one of 8 kernel zoo variants via
-``RunOptions`` (qrmcl.h:8-21).  On TPU the zoo collapses into ESC-based
-kernels; the registry maps every reference name onto its TPU equivalent so
+``RunOptions`` (qrmcl.h:8-21).  Here the zoo collapses into ESC-based
+kernels; the registry maps every reference name onto its equivalent so
 callers can port run scripts unchanged.
 """
 
@@ -246,7 +246,7 @@ def _esc_step(mgt, mt, product_cap, c_cap):
 
 
 # RunOptions parity (qrmcl.h:8-21): every reference backend collapses onto
-# the TPU ESC kernel; the names remain valid so reference run scripts port.
+# the device ESC kernel; the names remain valid so reference run scripts port.
 BACKENDS: dict[str, Callable[..., Any]] = {
     "ESC": _esc_step,
     "SEQ": _esc_step,

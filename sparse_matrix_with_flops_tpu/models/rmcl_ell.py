@@ -1,4 +1,4 @@
-"""Static-shape fused R-MCL: the production TPU clustering loop.
+"""Static-shape fused R-MCL: the production single-device clustering loop.
 
 Key observation: in Mt' = prune(inflate(Mgt · Mt)) the left operand Mgt is
 FIXED across iterations (qrmcl.cc:141 — `Mgt = Mt.deepCopy()` once), and
@@ -15,7 +15,7 @@ loop static:
 * the ESC sort–compress, the inflate/threshold/prune math (util.cc:4-69
   constants), top-S selection (two value sorts), renormalisation, and the
   convergence norm are all lane-axis ops on those tiles;
-* hub rows (degree beyond the largest tile) go through the dense-MXU
+* hub rows (degree beyond the largest tile) go through the dense
   path: precomputed dense Mgt_huge @ dense(Mt) + dense prune/select.
 
 Result: ONE compiled step, `lax.scan`-able, iterate device-resident for
@@ -32,9 +32,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..config import INDEX_DTYPE, QVALUE_DTYPE
+from ..config import INDEX_DTYPE, MATMUL_PRECISION, QVALUE_DTYPE
 from ..formats.csr import CSR
 from ..ops.prune import compute_threshold
+from ..ops.segments import sort_dedup_rows
 
 
 def _pow2ceil(x: int) -> int:
@@ -216,11 +217,11 @@ def _hub_dense_products(
     of iterate rows the hub rows reference, and only those rows of the
     iterate are gathered and densified — both the dense-slab traffic and
     the per-(row, S) element scatter shrink by kh/n (the ell_esc
-    hub-union law; at R-MAT s14 kh/n ≈ 0.49).  The slab budget is
-    512 MB: dense scatter targets past ~0.5 GB drop ~5× in rate
-    (docs/ROOFLINE.md, probe_bdense2).
+    hub-union law).  The dense slab budget is 512 MB, untuned on the
+    H100, see ROADMAP queue 1 #7.
 
-    ``precision="bf16"``: bf16 densification + bf16 MXU matmul with f32
+    ``precision="f32"`` multiplies at config.MATMUL_PRECISION (true f32).
+    ``precision="bf16"``: bf16 densification + bf16 matmul with f32
     accumulation — half the bytes; hub-row values carry ~3 significant
     digits (the prune threshold math tolerates it; enable for large n).
     """
@@ -253,7 +254,12 @@ def _hub_dense_products(
             vals.astype(dt), mode="promise_in_bounds", unique_indices=True
         )[:, :slab]
         parts.append(
-            jnp.dot(a_dense.astype(dt), md, preferred_element_type=jnp.float32)
+            jnp.dot(
+                a_dense.astype(dt),
+                md,
+                preferred_element_type=jnp.float32,
+                precision=MATMUL_PRECISION,
+            )
         )
     out = jnp.concatenate(parts, axis=1) if len(parts) > 1 else parts[0]
     return out[:, :n]
@@ -265,63 +271,9 @@ def _ell_drift_sq(old_c, old_v, new_c, new_v, n: int):
     r = old_c.shape[0]
     mc = jnp.concatenate([old_c, new_c], axis=1)
     mv = jnp.concatenate([-old_v, new_v], axis=1)
-    key2, runs = _dedup_tile(mc, mv, n, run=old_c.shape[1])
+    key2, runs = sort_dedup_rows(mc, mv, n)
     runs = jnp.where(key2 < n, runs, 0.0)
     return jnp.sum(runs * runs), jnp.sum(old_v * old_v)
-
-
-def _dedup_tile(tc, tv, n: int, run: int = 0):
-    """Sort + duplicate-sum + compact one [R, W] product tile (the ESC
-    core shared by the single-chip and sharded steps).
-
-    ``run > 0``: the tile rows are concatenations of ``run``-wide SORTED
-    segments (gathered iterate rows are column-sorted, sentinel-padded),
-    so on TPU the Pallas presorted-run bitonic runs the whole
-    sort/dedup/compact in VMEM starting at k=2·run — and its run-local
-    segmented sums are exact, unlike this XLA path's cumsum-difference
-    (~1e-4 abs on wide tiles)."""
-    W = tc.shape[1]
-    if (
-        run
-        and W >= 128
-        and W % run == 0
-        and run & (run - 1) == 0
-        and jax.default_backend() == "tpu"
-    ):
-        from ..ops.pallas_sort import sort_dedup_compact
-
-        nseg = W // run
-        if nseg > 1:
-            # reverse odd segments: the bitonic alternating-run invariant
-            flip = (jnp.arange(nseg) & 1).astype(bool)[None, :, None]
-            t3 = tc.reshape(-1, nseg, run)
-            tc = jnp.where(flip, t3[:, :, ::-1], t3).reshape(-1, W)
-            v3 = tv.reshape(-1, nseg, run)
-            tv = jnp.where(flip, v3[:, :, ::-1], v3).reshape(-1, W)
-        r0 = tc.shape[0]
-        rp = -(-r0 // 8) * 8
-        if rp != r0:
-            tc = jnp.concatenate(
-                [tc, jnp.full((rp - r0, W), n, INDEX_DTYPE)], axis=0
-            )
-            tv = jnp.concatenate(
-                [tv, jnp.zeros((rp - r0, W), QVALUE_DTYPE)], axis=0
-            )
-        key2, uval = sort_dedup_compact(tc, tv, n, presorted=run)
-        return key2[:r0], uval[:r0]
-    tc, tv = jax.lax.sort((tc, tv), dimension=1, num_keys=1)
-    csum = jnp.cumsum(tv, axis=1)
-    nxt = jnp.concatenate(
-        [tc[:, 1:], jnp.full((tc.shape[0], 1), n, INDEX_DTYPE)], axis=1
-    )
-    is_last = (tc != nxt) & (tc < n)
-    key2 = jnp.where(is_last, tc, n)
-    key2, csum2 = jax.lax.sort((key2, csum), dimension=1, num_keys=1)
-    prev = jnp.concatenate(
-        [jnp.zeros((key2.shape[0], 1), QVALUE_DTYPE), csum2[:, :-1]], axis=1
-    )
-    uval = jnp.where(key2 < n, csum2 - prev, 0.0)
-    return key2, uval
 
 
 @partial(jax.jit, static_argnames=("plan", "_stage"))
@@ -335,8 +287,7 @@ def rmcl_ell_step(
 
     ``_stage`` truncates for slope profiling (tools/profile_rmcl.py):
     0 = segments gather, 1 = + tile dedup, 2 = + prune/select, 3 = hub
-    only, 99 = full.  Cutoffs only bill work whose outputs they return
-    (the round-3 profiling lesson, docs/ROUND3_NOTES.md §3)."""
+    only, 99 = full.  Cutoffs only bill work whose outputs they return."""
     n, S = plan.n, plan.S
 
     # per-entry segments: one row gather of the iterate
@@ -364,7 +315,7 @@ def rmcl_ell_step(
         W = D * S
         tc = jnp.take(seg_c, src, axis=0).reshape(-1, W)
         tv = jnp.take(seg_v, src, axis=0).reshape(-1, W)
-        key2, uval = _dedup_tile(tc, tv, n, run=S)
+        key2, uval = sort_dedup_rows(tc, tv, n)
         if _stage == 1:
             s1_acc.append((jnp.sum(key2), jnp.sum(uval)))
             continue
@@ -391,7 +342,7 @@ def rmcl_ell_step(
     if _stage == 3:  # hub-free plan: nothing to measure
         return jnp.zeros(()), jnp.zeros(()), {}
     if plan.huge_rows.size:
-        # hub rows: dense MXU matmul against the densified iterate,
+        # hub rows: dense matmul against the densified iterate,
         # restricted to the union of iterate rows the hub references
         c_h = _hub_dense_products(
             a_dense_huge, mt_cols, mt_vals, n, plan.hub_precision,
@@ -464,8 +415,9 @@ def rmcl_ell(
     from ..formats.coo import COO
 
     mt0 = rmcl_init(graph) if isinstance(graph, COO) else graph
-    # the Pallas presorted dedup requires column-sorted rows; rmcl_init
-    # guarantees it, a caller-supplied CSR may not — normalise once
+    # the ELL iterate invariant (sorted, unique columns per row, see
+    # mt_to_ell) starts from an ordered CSR; rmcl_init guarantees it, a
+    # caller-supplied CSR may not — normalise once
     mt0 = mt0.make_ordered()
     plan = plan_rmcl_ell(
         mt0, S=S, max_tile=max_tile, hub_precision=hub_precision

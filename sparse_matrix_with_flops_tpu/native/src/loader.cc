@@ -1,6 +1,6 @@
 // Native data loader: fast SNAP / MatrixMarket ingestion + COO->CSR.
 //
-// TPU-native counterpart of the reference's C/C++ IO layer: the NIST
+// Counterpart of the reference's C/C++ IO layer: the NIST
 // MatrixMarket reader (nlibs/tools/mm_io.cc, 859 LoC) and the SNAP edge-list
 // parser with symmetric mirroring / transpose-read / default-value semantics
 // (nlibs/COO.cc:48-158), plus the sort+dedup+CSR build

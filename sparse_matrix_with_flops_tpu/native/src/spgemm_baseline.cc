@@ -6,8 +6,8 @@
 // 98-206 — equal-cost static partition + dense-accumulator rows).  This
 // is a fresh implementation of that ALGORITHM CLASS — two-phase
 // Gustavson, per-thread dense accumulator, equal-flops row partition —
-// so the TPU number can be stated relative to a reference-class
-// multi-thread CPU run on this host (VERDICT r2 #8).
+// so the device number can be stated relative to a reference-class
+// multi-thread CPU run on this host.
 //
 // Build: g++ -O3 -march=native -fopenmp -shared -fPIC (io/native.py).
 

@@ -7,8 +7,8 @@ Public surface (see docs/PARITY.md for the reference mapping):
   ``plan_ell`` — the production flops-classified pipeline
 * ``spgemm_binned`` / ``plan_bins`` — per-bin padded-width variant
 * ``spgemm_ell_partitioned`` / ``flops_prefix_partition`` — row-split
-  driver for flat export past one chip's memory scale
-* ``bcsr_spmm`` / ``csr_spmv`` / ``csr_spmm_dense`` — blocked matmuls
+  driver for flat export past one device's memory scale
+* ``bcsr_spmm_xla`` / ``csr_spmv`` / ``csr_spmm_dense`` — blocked matmuls
 * ``row_flops`` / ``classify_flops`` / ``flops_stats`` — the namesake
 * ``prune_normalize`` / ``compute_threshold`` — R-MCL row math
 
@@ -38,7 +38,6 @@ _EXPORTS = {
     "spgemm": "spgemm",
     "spgemm_dense_oracle": "spgemm",
     "spgemm_symbolic": "spgemm",
-    "bcsr_spmm": "spmm",
     "bcsr_spmm_xla": "spmm",
     "csr_spmm_dense": "spmm",
     "csr_spmv": "spmm",

@@ -1,6 +1,6 @@
 """Flops-binned SpGEMM — the framework's namesake kernel strategy.
 
-TPU re-design of the reference's two binned SpGEMM engines:
+Device re-design of the reference's two binned SpGEMM engines:
 
 * CPU ``group_CSR_SpMM`` (group_csr_kernel.cc:10-52): rows bucketed by
   flops into groups, each group dispatched with its own schedule;
@@ -9,9 +9,9 @@ TPU re-design of the reference's two binned SpGEMM engines:
   differently-shaped kernel (thread/sub-warp/warp/block per row) and a
   per-bin accumulator (sorting network / shared-mem hash / bitonic ESC).
 
-TPU translation: a *bin* is a dense padded tile ``[R, W]`` of partial
+Translation: a *bin* is a dense padded tile ``[R, W]`` of partial
 products (rows of similar flops share a power-of-two lane width W — the
-ELL-style padding that makes the VPU happy).  Per bin:
+ELL-style padding that keeps shapes static).  Per bin:
 
 1. gather the bin rows' products from the row-major expansion streams
    (the flops-offset array of flops.cu:133 gives each row a contiguous

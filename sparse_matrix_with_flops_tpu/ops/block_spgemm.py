@@ -1,29 +1,29 @@
-"""Dense-block (BCSR x BCSR) SpGEMM on the MXU.
+"""Dense-block (BCSR x BCSR) SpGEMM on the matrix units.
 
 The role: FEM/band-class matrices (the reference's own anchors — cant.mtx,
 consph, shipsec; tools/res.txt) have their nonzeros concentrated in a
 narrow diagonal band, so bs x bs blocks along the band are 15-40% dense.
 For these the lane-wise sort/dedup pipeline (ops/ell_esc.py) is the wrong
-shape: measured round 4, a 4-thread C++ Gustavson does cant-class in
-131 ms (4.0 GFLOPS double-count) while the ELL pipeline needs 500+ ms —
-band rows are a cache's best case and a sort network's worst.  The MXU
-answer is to make the multiply DENSE at block granularity:
+shape — band rows are a cache's best case and a sort network's worst.
+The answer here is to make the multiply DENSE at block granularity:
 
   1. densify A and B's occupied bs x bs blocks (one scatter each),
-  2. one batched [pairs, bs, bs] matmul for all block products
-     (structural pairs (i,k)x(k,j) planned on host),
-  3. segment-sum products into C blocks,
-  4. per block row, one lane sort compacts the dense rows back to sparse.
+  2. per C block, one matmul over all its structural pairs (i,k)x(k,j)
+     at once: the pairs' A blocks side by side times their B blocks
+     stacked, a [bs, K·bs] x [K·bs, bs] product (K = most pairs of any C
+     block, short lists padded with a zero block; planned on host) — one
+     batched matmul for all C blocks, with no scatter of products,
+  3. per block row, one lane sort compacts the dense rows back to sparse.
 
-Block-level waste (1/fill) is paid in MXU flops — the cheapest resource
-on the chip (~50 TFLOP/s f32 vs ~1 G sorted-lane/s for the ESC pipeline).
+Block-level waste (1/fill) is paid in dense matmul flops, the cheapest
+resource on the device.
 The exact structural nnz(C) (scipy/Gustavson semantics, explicit zeros
 included) is preserved by running the same batched matmul over 0/1
 structure blocks.
 
 Reference parity: this plays the role of the reference's per-bin kernel
 escalation for its FEM corpus rows (gspgemm.cuh bin zoo; tools/res.txt
-anchors) — re-designed for the MXU rather than translated.  The planner
+anchors) — re-designed for dense matmuls rather than translated.  The planner
 (:func:`plan_block`) is host structure analysis like gnnz.cuh's
 dispatcher; its cost is reported as plan_ms by the benchmark drivers.
 """
@@ -37,7 +37,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ..config import INDEX_DTYPE, QVALUE_DTYPE
+from ..config import INDEX_DTYPE, MATMUL_PRECISION, QVALUE_DTYPE
 from ..formats.csr import CSR
 from ..formats.tiled import TiledCSR
 from ..utils.nphost import (
@@ -66,10 +66,11 @@ class BlockPlan:
     b_r: np.ndarray  # int32[nnz_b]
     b_c: np.ndarray  # int32[nnz_b]
     n_bblk: int
-    # block product pairs, sorted by output block
-    pair_a: np.ndarray  # int32[P]
-    pair_b: np.ndarray  # int32[P]
-    pair_c: np.ndarray  # int32[P]
+    # block product pairs grouped by output block: row c lists the A and
+    # B blocks of C block c's pairs, padded with the zero blocks n_ablk /
+    # n_bblk
+    c_pair_a: np.ndarray  # int32[n_cblk, K]
+    c_pair_b: np.ndarray  # int32[n_cblk, K]
     n_cblk: int
     # C extraction: block ids per block row (-1 padded) + their col blocks
     bob: np.ndarray  # int32[mbr, kmax] C block ids
@@ -182,6 +183,15 @@ def plan_block(a: CSR, b: CSR, bs: int = 128) -> BlockPlan:
     n_cblk = int(cub.size)
     order = np.argsort(pair_c, kind="stable")
     pair_a, pair_b, pair_c = pair_a[order], pair_b[order], pair_c[order]
+    per_c = np.bincount(pair_c, minlength=n_cblk)
+    kp = max(int(per_c.max()) if per_c.size else 0, 1)
+    slot_p = np.arange(pair_c.size, dtype=np.int64) - (
+        np.cumsum(per_c) - per_c
+    )[pair_c]
+    c_pair_a = np.full((n_cblk, kp), n_ablk, np.int32)
+    c_pair_b = np.full((n_cblk, kp), n_bblk, np.int32)
+    c_pair_a[pair_c, slot_p] = pair_a
+    c_pair_b[pair_c, slot_p] = pair_b
 
     # C extraction layout: blocks per block row, -1 padded
     c_brow = (cub // ncb).astype(np.int64)
@@ -211,9 +221,8 @@ def plan_block(a: CSR, b: CSR, bs: int = 128) -> BlockPlan:
         b_r=(br & (bs - 1) if bs & (bs - 1) == 0 else br % bs),
         b_c=(bc & (bs - 1) if bs & (bs - 1) == 0 else bc % bs),
         n_bblk=n_bblk,
-        pair_a=pair_a.astype(np.int32),
-        pair_b=pair_b.astype(np.int32),
-        pair_c=pair_c.astype(np.int32),
+        c_pair_a=c_pair_a,
+        c_pair_b=c_pair_b,
         n_cblk=n_cblk,
         bob=bob,
         bob_colblk=bobc,
@@ -236,9 +245,9 @@ def _occupied_blocks(rp, ci, bs: int, n_r: int, n_c: int, cache_on=None) -> int:
 
 def block_fill_estimate(a: CSR, b: CSR, bs: int = 128) -> float:
     """Cheap routing signal: min(block fill of A, of B) without the full
-    plan.  The MXU path wins when the occupied blocks are dense enough
-    that 1/fill block-flop waste still beats the lane pipeline — in
-    practice fill >= ~5% (see docs/ROOFLINE.md round-4 rows)."""
+    plan.  The block path wins when the occupied blocks are dense enough
+    that 1/fill block-flop waste still beats the lane pipeline (the
+    threshold is ops.dispatch.BLOCK_FILL_THRESHOLD)."""
     rp_a, ci_a = csr_host(a)
     nnz_a = int(rp_a[-1])
     nbk = -(-b.rows // bs)
@@ -255,14 +264,16 @@ def block_fill_estimate(a: CSR, b: CSR, bs: int = 128) -> float:
 
 
 def _densify(blk, r, c, vals, n_blocks, bs):
-    out = jnp.zeros((n_blocks, bs, bs), QVALUE_DTYPE)
+    """[n_blocks + 1, bs, bs] dense blocks; the last one stays zero (the
+    pad target of short pair lists)."""
+    out = jnp.zeros((n_blocks + 1, bs, bs), QVALUE_DTYPE)
     return out.at[jnp.asarray(blk), jnp.asarray(r), jnp.asarray(c)].set(
         vals, mode="drop"
     )
 
 
 def block_spgemm_tiled(a: CSR, b: CSR, plan: BlockPlan) -> TiledCSR:
-    """C = A·B in tile form via batched dense block matmuls (MXU).
+    """C = A·B in tile form via batched dense block matmuls.
 
     Exact structural nnz(C): the same pair matmul runs over 0/1
     structure blocks, and extraction keeps exactly the positions with a
@@ -279,26 +290,21 @@ def block_spgemm_tiled(a: CSR, b: CSR, plan: BlockPlan) -> TiledCSR:
     b_struct = _densify(
         plan.b_blk, plan.b_r, plan.b_c, jnp.ones_like(bv), plan.n_bblk, bs
     )
-    pa = jnp.asarray(plan.pair_a)
-    pb = jnp.asarray(plan.pair_b)
-    pc = jnp.asarray(plan.pair_c)
+    pa = jnp.asarray(plan.c_pair_a)
+    pb = jnp.asarray(plan.c_pair_b)
 
     def pairs_matmul(xa, xb):
-        return jax.lax.dot_general(
+        # C[c] = sum_k A[pa[c,k]] @ B[pb[c,k]]: contract k and the inner
+        # block dimension together
+        return jnp.einsum(
+            "ckij,ckjl->cil",
             jnp.take(xa, pa, axis=0),
             jnp.take(xb, pb, axis=0),
-            (((2,), (1,)), ((0,), (0,))),
-            precision=jax.lax.Precision.HIGHEST,
+            precision=MATMUL_PRECISION,
         )
 
-    pv = pairs_matmul(a_blocks, b_blocks)
-    ps = pairs_matmul(a_struct, b_struct)
-    c_vals = jax.ops.segment_sum(
-        pv, pc, num_segments=plan.n_cblk, indices_are_sorted=True
-    )
-    c_struct = jax.ops.segment_sum(
-        ps, pc, num_segments=plan.n_cblk, indices_are_sorted=True
-    )
+    c_vals = pairs_matmul(a_blocks, b_blocks)
+    c_struct = pairs_matmul(a_struct, b_struct)
 
     # extraction: [mbr, kmax] blocks -> [m_pad, W] dense rows -> lane sort
     bob = jnp.asarray(plan.bob)
@@ -344,7 +350,7 @@ def block_spgemm_tiled(a: CSR, b: CSR, plan: BlockPlan) -> TiledCSR:
 def block_spgemm(
     a: CSR, b: CSR, plan: BlockPlan | None = None, bs: int = 128
 ) -> CSR:
-    """C = A·B as exact flat CSR via the dense-block MXU path."""
+    """C = A·B as exact flat CSR via the dense-block path."""
     if plan is None:
         plan = plan_block(a, b, bs=bs)
     return block_spgemm_tiled(a, b, plan).to_csr()

@@ -2,21 +2,20 @@
 
 The reference classifies every multiply per run and dispatches
 differently-shaped kernels (device classifier mindex2-cuda/flops.cu:
-110-140; CPU queue classifier nGpuSpMM.cc:48-83).  The TPU framework has
+110-140; CPU queue classifier nGpuSpMM.cc:48-83).  This framework has
 two structurally different engines:
 
 * the lane pipeline (ops/ell_esc.py): flops-classified row tiles,
-  gather + presorted bitonic dedup — right for power-law / scale-free
+  gather + per-row sort-compress — right for power-law / scale-free
   structure where occupied blocks would be ~0.1% dense;
-* the dense-block MXU path (ops/block_spgemm.py): batched bs x bs block
+* the dense-block engine (ops/block_spgemm.py): batched bs x bs block
   matmuls — right for FEM/band structure (the reference's cant/consph/
-  shipsec anchors) where blocks along the band are 15-40% dense and the
-  MXU's ~50 TFLOP/s makes the 1/fill block waste irrelevant.
+  shipsec anchors) where blocks along the band are 15-40% dense and
+  dense matmul rates make the 1/fill block waste cheap.
 
 :func:`spgemm_auto` picks per multiply from the measured block fill —
-one cheap host pass (block_fill_estimate).  The 5% default threshold
-comes from the round-4 TPU corpus: cant-class runs ~20x faster on the
-block path at fill 0.17, while rmat s10-s16 (fill < 0.02) regress on it.
+one cheap host pass (block_fill_estimate).  BLOCK_FILL_THRESHOLD is
+untuned on the H100, see ROADMAP queue 1 #7.
 """
 
 from __future__ import annotations
@@ -49,7 +48,7 @@ def spgemm_auto(
     fill_threshold: float = BLOCK_FILL_THRESHOLD,
     bs: int = 128,
 ) -> CSR:
-    """C = A·B, routed to the MXU block path or the lane pipeline by
+    """C = A·B, routed to the dense-block engine or the lane pipeline by
     measured block fill (the flops.cu classifier role)."""
     kernel, _ = route(a, b, fill_threshold, bs)
     if kernel == "block":

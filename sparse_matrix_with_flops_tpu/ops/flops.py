@@ -6,7 +6,7 @@ it to (a) load-balance (equal-flops partitioning, util.cc:123-149;
 static_omp_csr_kernel.cc:119-141) and (b) bin rows by cost and dispatch
 differently-shaped kernels (mindex2-cuda/flops.cu:39-47,110-140).
 
-TPU translation: the estimate is one gather + one segment-sum; binning is a
+Device translation: the estimate is one gather + one segment-sum; binning is a
 device-side sort + histogram (no host round trips), which then drives the
 chunked/binned SpGEMM grids.
 """
@@ -142,9 +142,9 @@ def footprint_row_costs(
     ``(flops + cnnz + 32 + annz) >> 1`` per row
     (static_omp_csr_kernel.cc:28-62, footPrintsCrowiCount) — an
     output-write term and an A-read term on top of the multiply count.
-    The TPU pipeline's real cost unit is the padded tile descriptor
-    (docs/ROOFLINE.md: kernel time ~ padded slots / chunk with bytes
-    nearly free), so this modernizes each term:
+    The ELL pipeline's cost unit is the padded tile chunk (its cost
+    model takes kernel time ~ padded slots / chunk, untuned on the H100,
+    see ROADMAP queue 1 #7), so this modernizes each term:
 
     * flops        -> padded descriptor slots (snap-to-lattice per entry)
     * cnnz (exact) -> min(flops, ncols) upper bound (the flat-cap law)

@@ -1,16 +1,15 @@
 """Row-partitioned SpGEMM driver: flat-CSR output at scales where the
-single-dispatch pipeline's intermediates exceed one chip's HBM.
+single-dispatch pipeline's intermediates exceed one device's memory.
 
 The ELL-ESC tiles phase materialises O(padded flops) intermediates and
-the assembly a further O(nnz C) window source; at R-MAT scale 16 that
-overflows a single v5e (docs/ROUND1_NOTES.md #3).  This driver splits
-A's rows into flops-balanced groups, runs the full pipeline per group
-(each its own dispatch, so peak HBM is the largest group's), and
+the assembly a further O(nnz C) window source.  This driver splits A's
+rows into flops-balanced groups, runs the full pipeline per group (each
+its own dispatch, so peak device memory is the largest group's), and
 stitches the per-group flat CSRs on the host.
 
 It is the reference's private-output + stitch parallelism (P5,
 /root/reference/original-matrix-perf/mvcsr.cc:124-226: per-thread PCSR
-blocks concatenated after the fact) re-cut for the TPU resource model:
+blocks concatenated after the fact) re-cut for the device memory limit:
 the same flops-balanced partition law (P2, scost dealing), but applied
 sequentially to bound MEMORY rather than concurrently to split time.
 B stays device-resident across groups.

@@ -11,7 +11,7 @@ Semantics mirror the reference exactly (values are float32 / QValue):
   kept (inflated) values by their sum  (arrayThreshPruneNormalize,
   util.cc:47-69).
 
-TPU formulation: everything is a segment reduction over the entry streams
+Device formulation: everything is a segment reduction over the entry streams
 (rows are segments), followed by one stable sort to compact survivors —
 no per-row loops.
 """

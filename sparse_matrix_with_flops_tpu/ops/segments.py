@@ -1,6 +1,6 @@
 """Segment / scan primitives shared by the sparse kernels.
 
-These are the TPU-native equivalents of the reference's L0 scan toolbox
+These are the device equivalents of the reference's L0 scan toolbox
 (``nlibs/tools/prefixSum.{h,cc}``, ``prefixSum64.*`` and the equal-cost
 partitioner ``arrayEqualPartition`` in ``nlibs/tools/util.cc:123-149``).
 Everything here is shape-static and jit-friendly: prefix sums are XLA
@@ -35,9 +35,8 @@ def entry_rows(row_ptr: jax.Array, capacity: int) -> jax.Array:
     ``rowPtr[i]..rowPtr[i+1]`` (e.g. cpu_csr_kernel.h:140-188).
 
     Scatter + cumsum, NOT searchsorted: rid[q] = #{i >= 1 : row_ptr[i] <= q}
-    via a +1 delta at every row start.  searchsorted measures ~6.8 M
-    lookups/s on this chip (docs/ROOFLINE.md) — 19 ms at s14 nnz scale —
-    while the delta scatter is m descriptors + a bandwidth-class cumsum.
+    via a +1 delta at every row start — m scattered writes plus one
+    bandwidth-bound scan instead of a binary search per slot.
     """
     rows = row_ptr.shape[0] - 1
     d = jnp.zeros((capacity,), INDEX_DTYPE)
@@ -121,3 +120,35 @@ def key_value_sort(keys: jax.Array, values: jax.Array, descending: bool = False)
     k = -keys if descending else keys
     k, v = jax.lax.sort((k, values), num_keys=1, is_stable=True)
     return (-k if descending else k), v
+
+
+def sort_dedup_rows(tc: jax.Array, tv: jax.Array, sentinel: int):
+    """Per row of an ``[R, W]`` product tile: sort by column, sum each run
+    of equal columns, compact the run totals to the front.
+
+    Returns ``(cols, vals)`` of the same shape; the tail holds
+    ``sentinel`` / 0.0, and input lanes with ``col >= sentinel`` are
+    padding.  Run totals come from a segmented scan that restarts at every
+    run, so each total carries the rounding of its own run only (a
+    difference of two whole-row prefix sums would carry the rounding of
+    the row's running total).  This is the ESC sort-compress shared by the
+    SpGEMM tiles and the R-MCL steps (kernel.cu:248 ReduceByKey role)."""
+    tc, tv = jax.lax.sort((tc, tv), dimension=1, num_keys=1)
+    r = tc.shape[0]
+    first = jnp.concatenate(
+        [jnp.ones((r, 1), bool), tc[:, 1:] != tc[:, :-1]], axis=1
+    )
+
+    def seg_add(x, y):
+        sx, vx = x
+        sy, vy = y
+        return sx | sy, jnp.where(sy, vy, vx + vy)
+
+    _, runsum = jax.lax.associative_scan(seg_add, (first, tv), axis=1)
+    nxt = jnp.concatenate(
+        [tc[:, 1:], jnp.full((r, 1), sentinel, tc.dtype)], axis=1
+    )
+    is_last = (tc != nxt) & (tc < sentinel)
+    key = jnp.where(is_last, tc, sentinel)
+    key, uval = jax.lax.sort((key, runsum), dimension=1, num_keys=1)
+    return key, jnp.where(key < sentinel, uval, 0.0)

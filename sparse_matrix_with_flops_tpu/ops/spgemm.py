@@ -1,14 +1,14 @@
 """SpGEMM: C = A·B with sparse A, B, C — the framework's core op.
 
-TPU-native formulation: **ESC (expand–sort–compress)** over the whole
+Device formulation: **ESC (expand–sort–compress)** over the whole
 multiply.  The reference's GPU "mindex2" stream pipeline
 (mindex2-cuda/kernel.cu:311-427, tryOutCompute.cu) already uses this shape —
 write every partial product to a stream at its flops-prefix offset, sort by
 (row, col), reduce duplicates — and it is exactly the formulation that maps
-onto a TPU: the expansion is a pair of gathers driven by a scatter+cumsum,
+onto an accelerator: the expansion is a pair of gathers driven by a scatter+cumsum,
 the sort is a lexicographic device sort, and the compress is a segment-sum.
 No per-row hash tables, no serial scatters (the CPU kernels' dense-
-accumulator trick, cpu_csr_kernel.h:140-188, does not vectorize on a VPU).
+accumulator trick, cpu_csr_kernel.h:140-188, does not vectorize).
 
 The two-phase symbolic/numeric API of the CPU kernels
 (cpu_csr_kernel.h:63-102: ``*_CSR_IC_nnzC`` then numeric) is preserved as

@@ -1,31 +1,22 @@
-"""Blocked SpMM / SpMV: BCSR × dense on the MXU.
+"""Blocked SpMM / SpMV: BCSR × dense.
 
 The reference ships BCSR/MCSR as formats with *no kernels* (SURVEY.md
 §2.2: "No BCSR SpMM/SpMV kernel exists — format + verification only");
-the TPU rebuild supplies real ones, because dense (8×128) blocks ARE the
-hardware's native currency:
+this package supplies real ones:
 
 * :func:`bcsr_spmm_xla` — batched-einsum formulation: gather B's block-rows
   per stored block, one big batched (br×bc)@(bc×N) matmul, scatter-add into
-  block rows.  Pure XLA; runs anywhere; the differential oracle.
-* :func:`bcsr_spmm` — Pallas kernel: grid (block-rows, N-tiles, blocks),
-  scalar-prefetched ``block_row_ptr``/``block_col`` drive the BlockSpec
-  index maps so each grid step DMAs exactly the needed A block and B tile
-  (double-buffered by the pipeline), accumulating in a VMEM out tile.
-  This is the MXU counterpart of a block-sparse matmul.
-* :func:`csr_spmv` — y = A·x as gather + segment-sum (VPU path).
+  block rows.
+* :func:`csr_spmv` — y = A·x as gather + segment-sum.
+* :func:`csr_spmm_dense` — the unblocked oracle for ``bcsr_spmm_xla``.
 """
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ..config import INDEX_DTYPE, QVALUE_DTYPE
+from ..config import INDEX_DTYPE, MATMUL_PRECISION, QVALUE_DTYPE
 from ..formats.bcsr import BCSR
 from ..formats.csr import CSR
 
@@ -50,6 +41,7 @@ def bcsr_spmm_xla(a: BCSR, b: jax.Array) -> jax.Array:
         a.blocks,
         gathered,
         preferred_element_type=jnp.float32,
+        precision=MATMUL_PRECISION,
     )
     valid = (a.block_col < a.nbcols)[:, None, None]
     prods = jnp.where(valid, prods, 0.0)
@@ -61,86 +53,6 @@ def bcsr_spmm_xla(a: BCSR, b: jax.Array) -> jax.Array:
     out = jnp.zeros((a.nbrows, a.br, n), QVALUE_DTYPE)
     out = out.at[brows].add(prods, mode="drop")
     return out.reshape(a.nbrows * a.br, n)[: a.rows].astype(QVALUE_DTYPE)
-
-
-def _bcsr_kernel(brp, bcol, blk_ref, b_ref, o_ref):
-    i = pl.program_id(0)
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    count = brp[i + 1] - brp[i]
-
-    @pl.when(k < count)
-    def _():
-        o_ref[:] += jnp.dot(
-            blk_ref[0], b_ref[:], preferred_element_type=jnp.float32
-        )
-
-
-@partial(jax.jit, static_argnames=("n_tile", "max_blocks_per_row", "interpret"))
-def _bcsr_spmm_pallas(
-    a: BCSR,
-    b: jax.Array,
-    n_tile: int,
-    max_blocks_per_row: int,
-    interpret: bool = False,
-) -> jax.Array:
-    n = b.shape[1]
-    bp = _pad_b(a, b)
-    npad = -(-n // n_tile) * n_tile
-    if npad > n:
-        bp = jnp.pad(bp, ((0, 0), (0, npad - n)))
-    grid = (a.nbrows, npad // n_tile, max_blocks_per_row)
-    bcap = a.block_capacity
-
-    def blk_map(i, j, k, brp, bcol):
-        return (jnp.minimum(brp[i] + k, bcap - 1), 0, 0)
-
-    def b_map(i, j, k, brp, bcol):
-        idx = jnp.minimum(brp[i] + k, bcap - 1)
-        return (jnp.minimum(bcol[idx], a.nbcols - 1), j)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, a.br, a.bc), blk_map),
-            pl.BlockSpec((a.bc, n_tile), b_map),
-        ],
-        out_specs=pl.BlockSpec((a.br, n_tile), lambda i, j, k, *_: (i, j)),
-    )
-    out = pl.pallas_call(
-        _bcsr_kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((a.nbrows * a.br, npad), jnp.float32),
-        interpret=interpret,
-    )(a.block_row_ptr, a.block_col, a.blocks, bp)
-    return out[: a.rows, :n].astype(QVALUE_DTYPE)
-
-
-def bcsr_spmm(
-    a: BCSR, b: jax.Array, n_tile: int = 128, kernel: str = "xla"
-) -> jax.Array:
-    """Blocked SpMM.  ``kernel='xla'`` (default): gather + batched-einsum
-    + block scatter — measured 2.6x FASTER than the Pallas scalar-
-    prefetch kernel at FEM-band shapes on v5e (tools/probe_spmm.py,
-    2026-08-19: 1.18 vs 3.05 ms at n=8192, N=512; the Pallas grid pays
-    per-step DMA latency on (br, n_tile) blocks).  ``kernel='pallas'``
-    keeps the scalar-prefetch kernel (TPU-validated, docs/TPU_SMOKE.log)
-    for shapes with many blocks per row where prefetch wins."""
-    import numpy as np
-
-    if kernel == "xla":
-        return bcsr_spmm_xla(a, b)
-    counts = np.asarray(a.block_row_ptr)
-    max_blocks = int(np.max(np.diff(counts))) if counts.size > 1 else 0
-    if max_blocks == 0:
-        return jnp.zeros((a.rows, b.shape[1]), QVALUE_DTYPE)
-    interpret = jax.default_backend() != "tpu"
-    return _bcsr_spmm_pallas(a, b, n_tile, max_blocks, interpret)
 
 
 @jax.jit
@@ -158,7 +70,7 @@ def csr_spmv(a: CSR, x: jax.Array) -> jax.Array:
 @jax.jit
 def csr_spmm_dense(a: CSR, b: jax.Array) -> jax.Array:
     """C = A·B with dense B via per-entry gather of B rows + segment-sum
-    over row segments (vmapped SpMV; the unblocked oracle for bcsr_spmm)."""
+    over row segments (vmapped SpMV; the unblocked oracle for bcsr_spmm_xla)."""
     assert b.shape[0] == a.ncols
     safe = jnp.clip(a.col_ind, 0, a.ncols - 1)
     rows_b = jnp.take(b, safe, axis=0)  # [cap, N]

@@ -2,15 +2,16 @@
 
 The reference is strictly single-node shared-memory + one GPU (SURVEY.md §2.6:
 no MPI/NCCL/UCX anywhere; its only 'communication' is cudaMemcpy,
-nlibs/CSR.cc:342-371).  The TPU rebuild makes multi-chip execution a
+nlibs/CSR.cc:342-371).  This package makes multi-device execution a
 first-class layer: a 1-D mesh over the row axis ('x') for row-partitioned
-SpGEMM / R-MCL, riding ICI collectives inserted by shard_map.
+SpGEMM / R-MCL, riding the collectives shard_map inserts, which XLA hands
+to NCCL on GPUs.
 
-On a multi-host deployment call :func:`init_distributed` first
-(jax.distributed.initialize), then :func:`make_mesh` builds the global mesh
-spanning all processes; DCN connects host groups, ICI connects chips within
-a slice — `jax.make_mesh` orders axes so the fastest-varying axis maps to
-ICI neighbours.
+Within one host the GPUs are joined all to all by NVLink, so the mesh
+follows the algorithm alone: no device order is closer than another.  On
+a multi-host deployment call :func:`init_distributed` first
+(jax.distributed.initialize), then :func:`make_mesh` builds the global
+mesh spanning all processes.
 """
 
 from __future__ import annotations
@@ -30,8 +31,6 @@ ROW_AXIS = "x"
 _CLUSTER_ENV_VARS = (
     "JAX_COORDINATOR_ADDRESS",
     "COORDINATOR_ADDRESS",
-    "MEGASCALE_COORDINATOR_ADDRESS",
-    "TPU_WORKER_HOSTNAMES",
 )
 
 

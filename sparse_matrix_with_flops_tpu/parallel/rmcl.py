@@ -1,10 +1,10 @@
-"""Distributed R-MCL: the flagship multi-chip training/iteration step.
+"""Distributed R-MCL: the flagship multi-device iteration step.
 
 Each iteration computes Mt' = prune(inflate(Mgt · Mt)) with
 
 * Mgt (the regularisation matrix) row-sharded and static across iterations,
-* Mt (the iterate) row-sharded; each step all-gathers it over ICI so every
-  chip can read the B rows its A entries touch, then runs the fused local
+* Mt (the iterate) row-sharded; each step all-gathers it so every
+  device can read the B rows its A entries touch, then runs the fused local
   ESC SpGEMM + inflate/threshold/prune/normalize on its own rows only.
   Pruning is row-local (threshold depends only on the row, util.cc:4-69),
   so the only collectives are the iterate all-gather and a psum for the

@@ -1,6 +1,6 @@
 """ShardedCSR: a CSR row-partitioned into D equal local blocks.
 
-TPU-native replacement for the reference's two partitioned formats:
+Device replacement for the reference's two partitioned formats:
 
 * PCSR column stripes (nlibs/PCSR.cc:3-56) — there, stripes feed per-stripe
   CPU SpGEMM (correctTests/pcsrTest.cc:7-19); here, partitioning is the

@@ -15,8 +15,8 @@ with row partitioning: on a mesh ('x', 'y'),
   column stripe of C depends only on the same stripe of B).
 
 Bandwidth: each device receives 1/y-th of B per step (vs the full B in
-the 1-D layout) — the memory/ICI win that makes matrices larger than one
-chip's HBM tractable.
+the 1-D layout) — the memory/interconnect win that makes matrices larger
+than one device's memory tractable.
 """
 
 from __future__ import annotations

@@ -128,8 +128,6 @@ def test_init_distributed_single_process_noop(monkeypatch):
     for var in (
         "JAX_COORDINATOR_ADDRESS",
         "COORDINATOR_ADDRESS",
-        "MEGASCALE_COORDINATOR_ADDRESS",
-        "TPU_WORKER_HOSTNAMES",
         "SLURM_NTASKS",
     ):
         monkeypatch.delenv(var, raising=False)

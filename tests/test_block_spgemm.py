@@ -1,4 +1,4 @@
-"""Dense-block MXU SpGEMM (ops/block_spgemm) vs oracles."""
+"""Dense-block SpGEMM (ops/block_spgemm) vs oracles."""
 
 import numpy as np
 import pytest
@@ -114,7 +114,7 @@ def test_block_tiled_form_ops(rng):
 
 def test_block_fill_estimate_routing():
     band = banded_csr(512, bandwidth=32, seed=2)
-    assert block_fill_estimate(band, band) > 0.05  # route to MXU
+    assert block_fill_estimate(band, band) > 0.05  # route to the block engine
     pl = rmat_csr(10, edge_factor=4, seed=7)
     assert block_fill_estimate(pl, pl) < 0.05  # stay on the lane pipeline
 

@@ -13,12 +13,10 @@ from sparse_matrix_with_flops_tpu.formats import (
     PCSR,
 )
 from sparse_matrix_with_flops_tpu.ops.spmm import (
-    bcsr_spmm,
     bcsr_spmm_xla,
     csr_spmm_dense,
     csr_spmv,
 )
-from sparse_matrix_with_flops_tpu.utils.generate import banded_csr
 
 from conftest import random_csr_np
 
@@ -43,17 +41,6 @@ def test_bcsr_spmm_xla_matches_dense(rng):
     got = bcsr_spmm_xla(bl, jnp.asarray(x))
     want = np.asarray(a.to_dense()) @ x
     np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4, atol=1e-4)
-
-
-def test_bcsr_spmm_pallas_matches_xla(rng):
-    a = banded_csr(64, bandwidth=5, seed=2)
-    bl = BCSR.from_csr(a, br=8, bc=8)
-    x = rng.standard_normal((64, 128)).astype(np.float32)
-    got = bcsr_spmm(bl, jnp.asarray(x), n_tile=128)
-    want = bcsr_spmm_xla(bl, jnp.asarray(x))
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4
-    )
 
 
 # ---- CSR spmv / spmm ------------------------------------------------------

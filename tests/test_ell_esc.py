@@ -158,94 +158,6 @@ def test_tiled_output_roundtrip_and_ops(rng):
     assert int(nnzc) == int(want2.nnz)
 
 
-def test_pallas_sort_dedup_compact_matches_xla(rng):
-    import jax
-    import jax.numpy as jnp
-    from sparse_matrix_with_flops_tpu.ops.pallas_sort import sort_dedup_compact
-
-    ncols = 37
-    tc = rng.integers(0, ncols + 1, size=(16, 32)).astype(np.int32)
-    tv = np.where(tc < ncols, rng.standard_normal((16, 32)), 0.0).astype(
-        np.float32
-    )
-    k, v = sort_dedup_compact(
-        jnp.asarray(tc), jnp.asarray(tv), ncols, interpret=True
-    )
-    k, v = np.asarray(k), np.asarray(v)
-    for r in range(16):
-        want = {}
-        for c, x in zip(tc[r], tv[r]):
-            if c < ncols:
-                want[c] = want.get(c, 0.0) + x
-        cols_sorted = sorted(want)
-        got_cols = [c for c in k[r] if c < ncols]
-        assert got_cols == cols_sorted, r
-        for i, c in enumerate(cols_sorted):
-            np.testing.assert_allclose(v[r, i], want[c], rtol=1e-5, atol=1e-6)
-
-
-def test_pallas_sort_presorted_runs_matches_full_sort(rng):
-    # the ELL-ESC tile invariant: aligned `chunk`-lane runs sorted, odd
-    # runs lane-reversed (descending); presorted=chunk must equal the
-    # full sort on the same multiset
-    import jax.numpy as jnp
-    from sparse_matrix_with_flops_tpu.ops.pallas_sort import (
-        sort_dedup_compact,
-    )
-
-    ncols, chunk, W = 53, 8, 64
-    tc = rng.integers(0, ncols + 1, size=(16, W)).astype(np.int32)
-    tv = np.where(tc < ncols, rng.standard_normal((16, W)), 0.0).astype(
-        np.float32
-    )
-    # build the invariant: sort each chunk (sentinels sort to the tail),
-    # reverse odd chunks
-    order = np.argsort(tc.reshape(16, -1, chunk), axis=2, kind="stable")
-    tcs = np.take_along_axis(tc.reshape(16, -1, chunk), order, axis=2)
-    tvs = np.take_along_axis(tv.reshape(16, -1, chunk), order, axis=2)
-    tcs[:, 1::2] = tcs[:, 1::2, ::-1]
-    tvs[:, 1::2] = tvs[:, 1::2, ::-1]
-    kp, vp = sort_dedup_compact(
-        jnp.asarray(tcs.reshape(16, W)),
-        jnp.asarray(tvs.reshape(16, W)),
-        ncols,
-        interpret=True,
-        presorted=chunk,
-    )
-    kf, vf = sort_dedup_compact(
-        jnp.asarray(tc), jnp.asarray(tv), ncols, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(kp), np.asarray(kf))
-    np.testing.assert_allclose(
-        np.asarray(vp), np.asarray(vf), rtol=1e-5, atol=1e-6
-    )
-
-
-def test_align_windows_matches_roll_select(rng):
-    import jax
-    import jax.numpy as jnp
-    from sparse_matrix_with_flops_tpu.ops.ell_esc import _roll_sel
-    from sparse_matrix_with_flops_tpu.ops.pallas_sort import align_windows
-
-    W = 16
-    q = 24
-    g = rng.integers(-100, 100, size=(q, 4 * W)).astype(np.int32)
-    off = rng.integers(0, W, size=(q,)).astype(np.int32)
-    gc_ref = np.concatenate([g[:, :W], g[:, 2 * W : 3 * W]], axis=1)
-    gv_ref = np.concatenate([g[:, W : 2 * W], g[:, 3 * W :]], axis=1)
-    want_c = np.asarray(
-        _roll_sel(jnp.asarray(gc_ref), jnp.asarray(off), W)[:, :W]
-    )
-    want_v = np.asarray(
-        _roll_sel(jnp.asarray(gv_ref), jnp.asarray(off), W)[:, :W]
-    )
-    got_c, got_v = align_windows(
-        jnp.asarray(g), jnp.asarray(off)[:, None], interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(got_c), want_c)
-    np.testing.assert_array_equal(np.asarray(got_v), want_v)
-
-
 def test_assembly_two_phase_path(rng):
     # two-phase tiles -> _flat_assemble (the 128-window roll-select
     # assembly with scatter-add row-head repair), small odd shapes
@@ -258,8 +170,7 @@ def test_assembly_two_phase_path(rng):
     plan = plan_ell(a, a, chunk=8, max_w=64)
     fc, fv, counts, fb = _tiles_impl(a, a, plan, 8)
     got = _flat_assemble(
-        fc, fv, counts, fb, 40, None, True, use_pallas=True,
-        vstart=plan.vstart,
+        fc, fv, counts, fb, 40, None, True, vstart=plan.vstart,
     )
     want = spgemm_dense_oracle(a, a)
     assert bool(
@@ -417,10 +328,9 @@ def test_auto_chunk_power_law_stays_fast():
 
 
 def test_wide_bin_past_pallas_boundary(rng):
-    """Round-4 tile classes W=16384/32768 exist and are exact when a
-    caller opts in with max_w=32768 (on-chip they compile with the
-    raised scoped-VMEM limit; default routing keeps such rows on the
-    hub because wide bitonics lose to it — see MAX_W's comment)."""
+    """Tile classes W=16384/32768 exist and are exact when a caller opts
+    in with max_w=32768 (default routing keeps such rows on the hub —
+    see MAX_W's comment)."""
     n = 320
     # one hot A row with ~300 entries; B rows ~60 entries wide ->
     # padded row width ~300*64 = 19200 -> pow2 class 32768

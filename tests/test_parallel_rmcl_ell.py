@@ -65,3 +65,14 @@ def test_sharded_balanced_matches_unbalanced(rng):
     ref, _ = sharded_rmcl_ell(mt0, mesh, max_iters=2, S=32)
     got, _ = sharded_rmcl_ell(mt0, mesh, max_iters=2, S=32, balance=True)
     assert _compare(got, ref)
+
+
+@pytest.mark.parametrize("exchange", ["fused_ring", "pallas_ring", "bogus"])
+def test_exchange_rejects_unknown_modes(exchange):
+    """Only the XLA-collective exchanges exist: "ring" and "all_gather"."""
+    mesh = make_mesh(2)
+    graph = load_coo("tests/tdatas/tdata.snap", extra_capacity=16)
+    with pytest.raises(ValueError, match="exchange must be one of"):
+        sharded_rmcl_ell(
+            rmcl_init(graph), mesh, max_iters=1, S=8, exchange=exchange
+        )

@@ -4,7 +4,7 @@ The reference ships four gutted test files whose intended assertions
 survive only as comments (SURVEY.md §4): tests/CSR_test.cc:10-101,
 COO_test.cc:3-24, MCSR_test.cc:8-40, util_test.cc:6-54.  This module
 ports those exact fixtures and expected values as live pytest cases
-against the TPU framework's equivalents.
+against this framework's equivalents.
 """
 
 import numpy as np
@@ -120,7 +120,7 @@ def test_coo_add_self_loop_if_needed():
 
 def test_mcsr_constructor_split():
     """MCSR_CSR_Constructor_test (MCSR_test.cc:8-40): the 7x7 fixture
-    splits into the expected sparse remainder + 4x4 dense corner (the TPU
+    splits into the expected sparse remainder + 4x4 dense corner (this
     MCSR stores the corner dense — the BCSR expected blocks of the
     reference assert the same region contents)."""
     dvalues = np.array(

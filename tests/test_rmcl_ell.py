@@ -60,7 +60,7 @@ def test_static_matches_dynamic_random(rng):
 
 
 def test_static_huge_row_dense_path(rng):
-    # one hub row forces the dense-MXU branch (degree > max_tile/S)
+    # one hub row forces the dense branch (degree > max_tile/S)
     n = 32
     mask = rng.random((n, n)) < 0.15
     np.fill_diagonal(mask, True)
@@ -137,3 +137,35 @@ def test_hub_bf16_close_to_f32(rng):
     a = np.asarray(f32.to_dense())
     b = np.asarray(b16.to_dense())
     assert np.allclose(a, b, rtol=0.05, atol=0.02)
+
+
+@pytest.mark.parametrize("width", [2048, 8192])
+def test_sort_dedup_rows_exact_on_wide_tiles(width):
+    """Run totals on a wide tile stay at the rounding of their own run.
+    Large runs early in the row push a whole-row prefix sum to ~1e6, so a
+    cumsum difference would lose the small runs after them (~0.06 abs);
+    the segmented sums keep every total within float32 rounding."""
+    import jax.numpy as jnp
+
+    from sparse_matrix_with_flops_tpu.ops.segments import sort_dedup_rows
+
+    rng = np.random.default_rng(width)
+    ncols = 4 * width
+    cols = rng.integers(0, ncols, size=(4, width)).astype(np.int32)
+    cols[:, : width // 2] = np.sort(cols[:, : width // 2], axis=1) % 64
+    vals = np.where(
+        cols < 64, 1e3, 1e-3 * rng.random((4, width))
+    ).astype(np.float32)
+    cols[:, -5:] = ncols  # padding lanes
+    key, got = sort_dedup_rows(jnp.asarray(cols), jnp.asarray(vals), ncols)
+    key, got = np.asarray(key), np.asarray(got)
+    for r in range(4):
+        live = cols[r] < ncols
+        want_c, inv = np.unique(cols[r][live], return_inverse=True)
+        want_v = np.bincount(
+            inv, weights=vals[r][live].astype(np.float64)
+        )
+        k = want_c.size
+        np.testing.assert_array_equal(key[r, :k], want_c)
+        assert np.all(key[r, k:] == ncols) and np.all(got[r, k:] == 0)
+        np.testing.assert_allclose(got[r, :k], want_v, rtol=2e-6, atol=0)

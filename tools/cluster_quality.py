@@ -9,7 +9,7 @@ truth plus cross-path label agreement as one JSON line each
 (VERDICT r2 #9).
 
 Usage: python tools/cluster_quality.py [n_clusters] [cluster_size] [iters]
-       [--out benchmarks/cluster_quality_r3.jsonl]
+       [--out results.jsonl]
 """
 
 import json

@@ -1,8 +1,8 @@
 """Multi-host readiness proof: a REAL 2-process jax.distributed dryrun.
 
-SURVEY §7-S5 claims multi-host support (DCN across hosts); with one
-physical TPU available this script proves the bring-up path end-to-end on
-the CPU backend, which exercises the exact same code: it re-launches
+SURVEY §7-S5 claims multi-host support; this script proves the bring-up
+path end to end on the CPU backend, which exercises the same code: it
+re-launches
 itself as 2 coordinated processes (jax.distributed.initialize via
 parallel.mesh.init_distributed), each exposing 4 virtual devices, builds
 the GLOBAL 8-device mesh spanning both processes, and runs

@@ -1,7 +1,7 @@
 """Per-stage slope profile of the fused ELL-ESC SpGEMM pipeline.
 
 Uses the `_stage` truncation hooks in ops/ell_esc.py to slope-time
-(docs/ROOFLINE.md) cumulative prefixes of the pipeline:
+(utils.timing.slope_bench) cumulative prefixes of the pipeline:
 
   tiles  stage 0: B-ELL build (B perturbed so it can't hoist)
          stage 1: + per-bin tile chunk gathers + scale
@@ -30,7 +30,6 @@ def main():
     from sparse_matrix_with_flops_tpu.ops.ell_esc import (
         _assemble_body,
         _tiles_impl,
-        _use_pallas_default,
         plan_ell,
         spgemm_ell,
     )
@@ -51,7 +50,6 @@ def main():
     if max_w:
         kw["max_w"] = max_w
     plan = plan_ell(a, a, **kw)
-    up = _use_pallas_default()
     dev_a = jax.device_put(a)
     print(
         f"backend={jax.default_backend()} s={scale} ef={ef} chunk={plan.chunk}"
@@ -68,13 +66,13 @@ def main():
         def step(x):
             # perturb BOTH operands: B-ELL build must not hoist
             a2 = CSR(dev_a.row_ptr, dev_a.col_ind, dev_a.values + x, dev_a.ncols)
-            return _tiles_impl(a2, a2, plan, plan.chunk, up, _stage=stage)
+            return _tiles_impl(a2, a2, plan, plan.chunk, _stage=stage)
 
         return step
 
     # frozen tile outputs for assembly-side profiling
     fc, fv, counts, fb = jax.block_until_ready(
-        _tiles_impl(dev_a, dev_a, plan, plan.chunk, up)
+        _tiles_impl(dev_a, dev_a, plan, plan.chunk)
     )
 
     def asm_stage(stage):
@@ -89,7 +87,6 @@ def main():
                 fb,
                 plan.ncols,
                 cap,
-                up,
                 _stage=stage,
             )
 
@@ -98,7 +95,7 @@ def main():
     def fused_step(x):
         a2 = CSR(dev_a.row_ptr, dev_a.col_ind, dev_a.values + x, dev_a.ncols)
         csr, nnzc = _tiles_impl(
-            a2, dev_a, plan, plan.chunk, up, fused_out_cap=cap
+            a2, dev_a, plan, plan.chunk, fused_out_cap=cap
         )
         return csr.row_ptr, csr.col_ind, csr.values, nnzc
 

@@ -1,9 +1,9 @@
 """Per-stage slope profile of the fused static R-MCL step.
 
 Stages (cumulative cutoffs; a cutoff only bills work whose outputs it
-returns — docs/ROUND3_NOTES.md §3):
+returns):
   0 = iterate segment gather
-  1 = + per-bin tile dedup (Pallas presorted bitonic)
+  1 = + per-bin tile dedup (sort + segmented run sums)
   2 = + prune / top-S selection / renormalise (+ scatter to the iterate)
   3 = hub path alone (union-restricted densify + matmul + select)
   99 = full step (+ drift norm)

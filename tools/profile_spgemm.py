@@ -1,7 +1,7 @@
 """Phase-level SpGEMM profiling on the attached device.
 
 Times each pipeline stage separately (expand / sort / scatter-assembly /
-binned variant) to find the TPU bottleneck.  Usage:
+binned variant) to find the device bottleneck.  Usage:
     python tools/profile_spgemm.py [scale] [edge_factor]
 """
 

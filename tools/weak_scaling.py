@@ -1,12 +1,12 @@
 """Weak-scaling harness: sharded SpGEMM / R-MCL across mesh sizes.
 
-BASELINE.md asks for SpGEMM nnz/s weak-scaling from 1 chip to N.  With one
-physical chip available, this harness runs on N virtual CPU devices (the
-collective paths are identical; absolute times are CPU-bound) and on real
-multi-chip slices unchanged.  Problem size grows with N (weak scaling):
-per-shard work is held constant.
+BASELINE.md asks for SpGEMM nnz/s weak-scaling from 1 device to N.  With
+``JAX_PLATFORMS=cpu`` this harness runs on N virtual CPU devices (the
+collective paths are identical; absolute times are CPU-bound); on a
+multi-GPU host it runs on the GPUs unchanged.  Problem size grows with N
+(weak scaling): per-shard work is held constant.
 
-Usage: SMF_PLATFORM=cpu python tools/weak_scaling.py [devices...]
+Usage: JAX_PLATFORMS=cpu python tools/weak_scaling.py [devices...]
 """
 
 import os
@@ -21,9 +21,6 @@ os.environ.setdefault(
 )
 
 import jax
-
-if os.environ.get("SMF_PLATFORM"):
-    jax.config.update("jax_platforms", os.environ["SMF_PLATFORM"])
 
 import numpy as np
 
@@ -88,7 +85,7 @@ def main():
                 "nnz": nnz,
                 "caveat": (
                     "virtual CPU mesh: validates the collective program "
-                    "and scaling SHAPE, not absolute TPU time"
+                    "and scaling SHAPE, not absolute device time"
                     + (
                         f"; {nd} virtual devices OVERSUBSCRIBE the host's "
                         f"{os.cpu_count()} cores — efficiency above that "
